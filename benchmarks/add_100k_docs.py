@@ -14,7 +14,7 @@ Workload reproduced exactly:
     pass, plus steady-state re-add passes to mirror criterion's warm
     measurement).
 
-Also reports the bulk columnar pipeline on the same corpus (the TPU-native
+Also reports the bulk columnar pipeline on the same corpus (the batched
 build path, no per-doc analogue in the reference).
 """
 

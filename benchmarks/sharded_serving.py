@@ -1,14 +1,14 @@
 #!/usr/bin/env python
 """Steady-state SHARDED serving benchmark on the virtual 8-device CPU mesh.
 
-The sharded engine now carries the full single-chip serving kit (VERDICT r3
-item 1): pooled per-query plan cache, packed result formats
-(f32/compact/slots/slots20 via the shared pack_result_rows), b_out pad-row
-trimming, prefetch_results + paired late drains.  This harness records the
+The sharded engine carries the full single-card serving kit: pooled
+per-query plan cache, packed result formats (f32/compact/slots/slots20 via
+the shared pack_result_rows), b_out pad-row trimming, prefetch_results +
+paired late drains.  This harness records the
 steady-state QPS and the plan/pack/dispatch/drain phase split per window —
 the same decomposition bench.py records for the single-chip engine.
 
-NOT a hardware number: the virtual mesh executes on ONE host CPU core, so
+NOT a device number: the virtual mesh executes on the host CPU, so
 absolute QPS tracks host speed; the value of the record is (a) regression
 tracking for the collective plan + serving machinery and (b) the phase
 split, which shows where a real multi-chip deployment would bind (plan and
@@ -28,8 +28,6 @@ if "xla_force_host_platform_device_count" not in _flags:
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache_cpu")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
 
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])

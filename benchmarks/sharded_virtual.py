@@ -1,11 +1,10 @@
 #!/usr/bin/env python
 """Sharded engine throughput harness on the virtual 8-device CPU mesh.
 
-NOT a hardware number: the virtual mesh runs on host CPU, so this measures
+NOT a device number: the virtual mesh runs on host CPU, so this measures
 the sharded program's functional scaling shape (classes, packing, O(k)
-collective) and gives a tracked number for regressions.  Real multi-chip
-TPU hardware is unavailable in this environment; the driver validates the
-multi-chip path via `__graft_entry__.dryrun_multichip`.
+collective) and gives a tracked number for regressions.  The four-card
+path runs on the GPUs with ``python chip_smoke.py --mesh 4``.
 """
 
 import json

@@ -1,10 +1,10 @@
 #!/usr/bin/env python
 """zero-to-one ADVERSARIAL worst case: shared-node queries past the
-lockstep compile cap (VERDICT r4 weak #6 / item 7).
+lockstep lane cap.
 
-Shared expansion nodes need the exact lockstep program, and the remote
-compiler handles it only up to ~16384 entry lanes (ops/z2o_device.py
-``max_fl``); bigger shared-node queries are served by the vectorized HOST
+Shared expansion nodes need the exact lockstep program, which is capped at
+16384 entry lanes (ops/z2o_device.py ``max_fl``); bigger shared-node
+queries are served by the vectorized HOST
 lockstep (`ZeroToOne.vectorized_query`) — exact, but at host speed.  This
 probe puts a number on that degradation: a window of duplicate-term
 hot-prefix queries (`"w0 w0"`-style — every query shares a fat expansion
@@ -12,7 +12,7 @@ node and exceeds the cap) served end to end, vs the engine's fast-path
 headline on the same corpus (benchmarks/zero_to_one_50k.py).
 
 Exactness is still asserted (host lockstep is bit-identical to the f64
-oracle).  Prints one JSON line; numbers recorded in PERFORMANCE.md.
+oracle).  Prints one JSON line.
 
 Run:  python benchmarks/z2o_adversarial.py        (host-bound; the device
 is only touched by the non-adversarial comparison window)
@@ -34,8 +34,10 @@ def log(msg):
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from probly_search_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+    log(f"devices: {jax.devices()}")
     from probly_search_tpu import Index, whitespace_tokenizer, zero_to_one
     from probly_search_tpu.ops.z2o_device import z2o_query_batch_async
     from probly_search_tpu.utils.metrics import metrics

@@ -5,7 +5,7 @@ set -euo pipefail
 cd "$(dirname "$0")"
 
 echo "== syntax / import check =="
-python -m compileall -q probly_search_tpu tests bench.py __graft_entry__.py
+python -m compileall -q probly_search_tpu tests bench.py chip_smoke.py __graft_entry__.py
 python -c "import probly_search_tpu"
 
 echo "== lint (stdlib clippy/rustfmt analogue, ci.yml:44-69) =="
@@ -15,7 +15,7 @@ echo "== unit + integration tests + coverage floor (grcov analogue, ci.yml:71-11
 # ONE pytest process PER FILE: XLA:CPU segfaults in
 # backend_compile_and_load once enough large programs (window
 # compositions, the 8-device shard_map window) have compiled in one
-# process — position-dependent (r7: reproduced at three different tests
+# process — position-dependent (reproduced at three different tests
 # purely by ordering; every file passes alone — a jax/XLA process-state
 # bug, not ours).  covgate --cum unions coverage across the processes;
 # the final --gate-only call applies the floor.
@@ -26,19 +26,17 @@ for f in tests/test_*.py; do
 done
 python -m tools.covgate 85 --gate-only /tmp/covgate_cum.json
 
-echo "== entry-point checks =="
-JAX_PLATFORMS=cpu XLA_FLAGS="--xla_force_host_platform_device_count=8" python - <<'EOF'
+echo "== entry-point checks (virtual 8-device CPU mesh) =="
+JAX_PLATFORMS=cpu XLA_FLAGS="--xla_force_host_platform_device_count=8" python - <<'EOF2'
 import jax
-jax.config.update("jax_platforms", "cpu")
 import __graft_entry__ as g
-import numpy as np
 fn, args = g.entry()
 jax.jit(fn)(*args)
 g.dryrun_multichip(8)
 print("entry points OK")
-EOF
+EOF2
 
-echo "== examples smoke (walkthroughs must not rot; VERDICT r2 weak #6) =="
+echo "== examples smoke (walkthroughs must not rot) =="
 for ex in examples/*.py; do
   echo "-- $ex"
   PSEARCH_CPU=1 JAX_PLATFORMS=cpu \
@@ -46,14 +44,12 @@ for ex in examples/*.py; do
     python "$ex" > /dev/null
 done
 
-echo "== dryrun self-provisioning (driver contract: 1 ambient device) =="
-JAX_PLATFORMS=cpu python - <<'EOF'
-import jax
-jax.config.update("jax_platforms", "cpu")
-assert len(jax.devices()) == 1, jax.devices()
-import __graft_entry__ as g
-g.dryrun_multichip(8)  # must re-exec onto a virtual 8-device CPU mesh
-print("self-provisioning OK")
-EOF
+echo "== chip_smoke.py refuses to run without a GPU =="
+if JAX_PLATFORMS=cpu python chip_smoke.py > /dev/null 2>&1; then
+  echo "chip_smoke.py completed on the CPU" >&2
+  exit 1
+fi
+
+# On the card: python chip_smoke.py (one GPU); python chip_smoke.py --mesh 4.
 
 echo "CI OK"

@@ -9,7 +9,7 @@ import sys
 sys.path.insert(0, "..")
 sys.path.insert(0, ".")
 
-if os.environ.get("PSEARCH_CPU"):  # run on CPU (e.g. while the TPU is busy)
+if os.environ.get("PSEARCH_CPU"):  # run on the CPU (e.g. while the GPU is busy)
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -44,6 +44,6 @@ print("after remove + vacuum, BM25 'abc':")
 for r in index.query("abc", bm25.new(), whitespace_tokenizer, [1.0, 1.0]):
     print(f"  doc {r.key}: {r.score:.10f}")
 
-# Batched TPU path (top-k):
+# Batched device path (top-k):
 rows = index.query_batch(["abc", "dfg"], bm25.new(), top_k=5)
 print("batched:", [[(r.key, round(r.score, 6)) for r in row] for row in rows])

@@ -3,7 +3,7 @@
 (`/root/reference/README.md:19`, the `ScoreCalculator` trait).  This scorer
 implements simple TF-IDF-free "field-weighted term count" with all three
 protocol phases, plus the optional device protocol so it runs vectorized on
-TPU."""
+the device."""
 
 import os
 import sys
@@ -11,7 +11,7 @@ import sys
 sys.path.insert(0, "..")
 sys.path.insert(0, ".")
 
-if os.environ.get("PSEARCH_CPU"):  # run on CPU (e.g. while the TPU is busy)
+if os.environ.get("PSEARCH_CPU"):  # run on the CPU (e.g. while the GPU is busy)
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -43,7 +43,7 @@ class WeightedCount(BaseScoreCalculator):
 
 class DeviceWeightedCount(BaseScoreCalculator):
     """The same scorer WITHOUT the normalization pass — finalize-free, so it
-    also implements the device protocol and runs as one batched TPU program
+    also implements the device protocol and runs as one batched device program
     through ``Index.query_batch`` (models/base.py DeviceScorer):
 
     * ``device_term_scale`` — the vectorized ``before_each``: one host f32
@@ -97,7 +97,7 @@ print("host path (stateful finalize):")
 for r in index.query("red fruit", WeightedCount(), whitespace_tokenizer, [2.0, 1.0]):
     print(f"  doc {r.key}: {r.score:.4f}")
 
-print("device batch path (custom scorer on TPU):")
+print("device batch path (custom scorer on the device):")
 rows = index.query_batch(
     ["red fruit", "green"], DeviceWeightedCount(), whitespace_tokenizer, [2.0, 1.0]
 )

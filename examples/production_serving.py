@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Production serving walkthrough — the high-throughput recipe.
 
-Shows the pieces a real deployment combines (all measured in
-PERFORMANCE.md; bench.py is the full-scale version):
+Shows the pieces a real deployment combines (bench.py is the full-scale
+version):
 
 1. columnar bulk ingestion,
 2. the async window API with the columnar drain (``get_arrays`` — never
@@ -14,8 +14,8 @@ PERFORMANCE.md; bench.py is the full-scale version):
 6. exact block-max pruning (on by default; decisions are memoized, so
    it costs ~nothing on mixes it cannot help).
 
-Runs on CPU in under a minute (tiny corpus / windows); on a real TPU
-only the scale changes.
+Runs on CPU in under a minute (tiny corpus / windows); on a GPU only the
+scale changes.
 """
 
 import os
@@ -25,7 +25,7 @@ import tempfile
 sys.path.insert(0, "..")
 sys.path.insert(0, ".")
 
-if os.environ.get("PSEARCH_CPU"):  # run on CPU (e.g. while the TPU is busy)
+if os.environ.get("PSEARCH_CPU"):  # run on the CPU (e.g. while the GPU is busy)
     import jax
 
     jax.config.update("jax_platforms", "cpu")

@@ -2,7 +2,7 @@
 """Multi-chip serving — doc-sharded index over a ("data", "docs") mesh.
 
 Runs anywhere: set PSEARCH_CPU=1 to simulate 8 devices on the host CPU
-(the same SPMD program the TPU mesh executes).  The sharded engine's only
+(the same SPMD program a mesh of GPUs executes).  The sharded engine's only
 query-time collective is the O(k) top-k all-gather; document frequencies
 are global but static per snapshot, so idf is precomputed on host.
 """

@@ -14,8 +14,7 @@ Shows the full multi-chip serving surface:
   all-gather).
 * ``query_batch`` routes BOTH shipped scorers through the mesh.
 * The columnar drain (``get_arrays``) — the serving-path API: per-result
-  Python objects cost more than the device round trip at real window
-  sizes (PERFORMANCE.md).
+  Python objects cost more than the device work at real window sizes.
 * Mutation-safe snapshot caching: add/remove invalidates the sharded
   snapshot exactly like the single-chip one.
 """

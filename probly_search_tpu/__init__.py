@@ -1,7 +1,7 @@
-"""probly-search-tpu — a TPU-native full-text search engine.
+"""probly-search-tpu — a full-text search engine for accelerators (JAX/XLA).
 
-A ground-up rebuild of the capabilities of `quantleaf/probly-search` (Rust,
-reference at /root/reference) designed for TPU hardware:
+A ground-up rebuild of the capabilities of `quantleaf/probly-search` (Rust)
+designed for batched execution on an accelerator:
 
 * The reference's per-char trie inverted index (``src/index.rs:363-452``)
   is replaced by a **sorted term dictionary + CSR posting lists** stored as

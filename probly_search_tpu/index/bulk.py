@@ -1,7 +1,7 @@
 """Bulk (columnar) document ingestion.
 
 The reference indexes one document at a time by walking the trie per term
-occurrence (`/root/reference/src/index.rs:77-158`).  The TPU-native build is
+occurrence (`/root/reference/src/index.rs:77-158`).  This build is
 a batched pipeline (SURVEY §7): tokenize -> intern -> sort by (term, doc) ->
 segment-sum term frequencies -> CSR pack, vectorized on host (NumPy) with a
 native C++ tokenize+intern fast path (native/psearch_native.cpp).
@@ -135,7 +135,7 @@ def _bulk_ingest(index, keys, field_texts, tokenizer, is_last) -> None:
     # --- native one-shot CSR fast path (any F, any tokenizer) -------------
     # tokenize + intern + tf counting + CSR pack all in one C++ pass
     # (O(tokens + postings)); the numpy pair machinery below costs several
-    # 8M-element packed sorts per 1M docs (PERFORMANCE.md r4).  Default
+    # 8M-element packed sorts per 1M docs.  Default
     # tokenizer + single-value cells tokenize natively; custom tokenizers
     # and multi-value cells tokenize in Python (the fn-pointer extension
     # point, lib.rs:14) and feed the pre-tokenized intern+pack pass.

@@ -5,8 +5,8 @@ Reproduces the observable semantics of the reference `Index<T>`
 (`/root/reference/src/query.rs:17-164`) on top of the segment SoA data model
 (see segment.py).  The exact host path below is the **semantics oracle**: it
 runs in pure Python/NumPy float64 and passes every reference golden test to
-8 decimal places.  The TPU path (index/device.py + ops/) is validated against
-it.
+8 decimal places.  The device path (index/device.py + ops/) is validated
+against it.
 
 Faithfully reproduced quirks (they are observable through golden scores):
 
@@ -288,7 +288,7 @@ class Index:
         tokenizer: Tokenizer,
         items: Sequence[Tuple[Any, Any]],
     ) -> None:
-        """Bulk add — batched indexing is the TPU-native entry point."""
+        """Bulk add — batched indexing is the high-throughput entry point."""
         for key, doc in items:
             self.add_document(field_accessors, tokenizer, key, doc)
 
@@ -455,7 +455,7 @@ class Index:
         top_k: Any = _DEFAULT_TOP_K,
         backend: str = "auto",
     ) -> List[List[QueryResult]]:
-        """Batched top-k query — the TPU-native entry point.
+        """Batched top-k query — the device entry point.
 
         The reference answers one query at a time (`query.rs:21`); batching
         is what turns the device into a QPS machine (SURVEY §2.3).  Scorers

@@ -3,9 +3,9 @@
 The classic exact-top-k machinery of production BM25 engines (block-max
 upper bounds, WAND/MaxScore-family thresholds) applied to this engine's
 execution model.  The reference scores EVERY live posting
-(`/root/reference/src/query.rs:61-89`); this engine's device cost is ~linear
-in gathered lanes (PERFORMANCE.md r5 s11), so dropping posting chunks that
-provably cannot reach the top-k cuts device time with zero result change.
+(`/root/reference/src/query.rs:61-89`); this engine's device cost grows with
+the gathered lanes, so dropping posting chunks that provably cannot reach
+the top-k cuts device time with zero result change.
 
 Everything happens on the HOST at plan time — the device programs are
 untouched; pruning only shrinks/splits the job descriptors they receive.

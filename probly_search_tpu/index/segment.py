@@ -1,4 +1,4 @@
-"""Immutable index segments — the TPU-native replacement for the trie.
+"""Immutable index segments — the array-native replacement for the trie.
 
 The reference stores its inverted index as a per-char trie of arena-allocated
 nodes with intrusive linked lists (`/root/reference/src/index.rs:363-452`).
@@ -163,9 +163,9 @@ def build_segment(
 
     INVARIANT: ``post_doc`` is ascending within every term's posting range
     (the lexsort below; bulk.py's sorted-unique pack and merge_segments ->
-    build_segment preserve it).  The device merge kernel relies on this —
-    gathered posting chunks are pre-sorted runs, so the fused kernel merges
-    rather than sorts (ops/pallas_merge.py).
+    build_segment preserve it).  The device merge relies on this —
+    gathered posting chunks are pre-sorted runs
+    (ops/merge.merge_scores_topk_presorted).
     """
     P = len(rows_term)
     if P == 0:

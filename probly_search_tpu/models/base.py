@@ -16,7 +16,7 @@ Context structs mirror ``TermData`` (calculator.rs:9-19) and ``FieldData``
 (calculator.rs:21-26).
 
 A scorer may additionally implement the **device protocol**
-(:class:`DeviceScorer`) to run vectorized on TPU; the built-in BM25 does.
+(:class:`DeviceScorer`) to run vectorized on the device; the built-in BM25 does.
 Scorers that only implement the host protocol still work through the exact
 host path — user-pluggable scoring is a headline reference feature
 (`README.md:19`) and remains first-class here.
@@ -142,7 +142,7 @@ class BaseScoreCalculator:
 
 @runtime_checkable
 class DeviceScorer(Protocol):
-    """Optional vectorized device protocol for TPU execution.
+    """Optional vectorized device protocol for device execution.
 
     ``device_term_scale`` is the vectorized analogue of ``before_each``
     (calculator.rs:43-50): a host-side per-(query term x expansion)

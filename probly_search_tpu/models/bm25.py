@@ -153,9 +153,9 @@ class BM25(BaseScoreCalculator):
     # ln(1+x)/x on [0, 1] as a power series (degree-9 Chebyshev fit; max
     # relative error of x*P(x) vs ln(1+x) in f32 Horner: 1.4e-7 over all
     # integer deltas — at the f32 noise floor).  Used instead of the
-    # hardware log1p: the TPU VPU's transcendental approximation measured
-    # ~1.25e-4 relative error on the expansion boost (r4 diagnostic),
-    # 1000x the f32 rounding budget the parity suite allows.
+    # device's log1p so the expansion boost is exact to f32 rounding on any
+    # backend: a device transcendental may be approximated far past the
+    # 2e-5 budget the parity suite allows.
     _LOG1P_RATIO_COEFFS = (
         0.9999999869915193, -0.4999985092774396, 0.33329100870038264,
         -0.2494782132315905, 0.19651539184497904, -0.15251556640920744,

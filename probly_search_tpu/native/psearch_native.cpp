@@ -254,7 +254,7 @@ void psearch_free_csr(CsrResult* res) {
 //   * psearch_tokenize_csr_multi — text cells, native space tokenization
 //     (default whitespace tokenizer semantics, index.rs:100-110);
 //   * psearch_intern_csr_multi — pre-tokenized streams (custom tokenizers
-//     tokenize in Python; intern+count+pack stay native — VERDICT r2 #7).
+//     tokenize in Python; intern+count+pack stay native).
 // Cells are DOC-MAJOR: cell(d, f) = d * n_fields + f.
 
 struct CsrMultiResult {

@@ -51,39 +51,44 @@ def segmented_scan(op, values, head_flags):
 
 
 def merge_scores_topk_presorted(key, score, k: int, qterm_bits: int, run: int, excl: bool):
-    """merge_scores_topk for the pre-sorted-runs scheme (see
-    ops/pallas_merge.merge_body): key sentinels are ``-1`` (leading pads,
-    sort low) and ``INVALID_KEY`` (trailing pads); dead docs carry ordered
-    keys with score ``-inf``; ``excl`` drops doc totals that are not > 0
-    (the caller already clamped nonpositive posting scores to 0).
+    """merge_scores_topk for the pre-sorted-runs scheme: ``key`` is a row
+    of ``run``-lane ascending runs (posting chunks, CSR order).  Key
+    sentinels are ``-1`` (leading pads, sort low) and ``INVALID_KEY``
+    (trailing pads); dead docs carry ordered keys with score ``-inf``;
+    ``excl`` drops doc totals that are not > 0 (the caller already clamped
+    nonpositive posting scores to 0).
 
-    The sort is ``lax.sort`` even though the runs are pre-sorted: an XLA
-    roll-network odd-even merge was measured ~1.8x SLOWER than lax.sort at
-    L=32768 (every unrolled stage materializes in HBM) — the network only
-    pays inside the VMEM-resident Pallas kernel."""
+    The sort is ``lax.sort`` even though the runs are pre-sorted: an
+    unrolled merge network expressed in XLA writes every stage to device
+    memory, where the native sort does not.  A single run skips the sort."""
     if run < key.shape[-1]:
-        key_s, score_s = jax.lax.sort((key, score), dimension=key.ndim - 1, num_keys=1)
+        with jax.named_scope("merge_sort"):
+            key_s, score_s = jax.lax.sort(
+                (key, score), dimension=key.ndim - 1, num_keys=1
+            )
     else:
         key_s, score_s = key, score
 
-    head1 = key_s != _shift_right(key_s, -1)
-    run_max = segmented_scan(jnp.maximum, score_s, head1)
-    tail1 = key_s != _shift_left(key_s, -1)
-    contrib = jnp.where(tail1, run_max, 0.0)
+    with jax.named_scope("merge_scan"):
+        head1 = key_s != _shift_right(key_s, -1)
+        run_max = segmented_scan(jnp.maximum, score_s, head1)
+        tail1 = key_s != _shift_left(key_s, -1)
+        contrib = jnp.where(tail1, run_max, 0.0)
 
-    doc = key_s >> qterm_bits
-    head2 = doc != _shift_right(doc, -1)
-    doc_sum = segmented_scan(jnp.add, contrib, head2)
-    tail2 = doc != _shift_left(doc, -1)
+        doc = key_s >> qterm_bits
+        head2 = doc != _shift_right(doc, -1)
+        doc_sum = segmented_scan(jnp.add, contrib, head2)
+        tail2 = doc != _shift_left(doc, -1)
 
-    live = (key_s != INVALID_KEY) & (key_s >= 0)
-    keep = tail2 & live
-    if excl:
-        keep = keep & (doc_sum > 0.0)
-    final = jnp.where(keep, doc_sum, -jnp.inf)
-    top_scores, top_lanes = jax.lax.top_k(final, k)
-    top_docs = jnp.take_along_axis(doc, top_lanes, axis=-1).astype(jnp.int32)
-    top_docs = jnp.where(jnp.isfinite(top_scores), top_docs, -1)
+        live = (key_s != INVALID_KEY) & (key_s >= 0)
+        keep = tail2 & live
+        if excl:
+            keep = keep & (doc_sum > 0.0)
+        final = jnp.where(keep, doc_sum, -jnp.inf)
+    with jax.named_scope("topk"):
+        top_scores, top_lanes = jax.lax.top_k(final, k)
+        top_docs = jnp.take_along_axis(doc, top_lanes, axis=-1).astype(jnp.int32)
+        top_docs = jnp.where(jnp.isfinite(top_scores), top_docs, -1)
     return top_scores, top_docs
 
 

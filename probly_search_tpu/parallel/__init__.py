@@ -3,7 +3,7 @@
 The reference is strictly single-threaded (SURVEY §2.3: no parallelism of
 any kind exists in it; the only concurrency artifact is a Mutex smoke test,
 `tests/integrations_tests.rs:151-168`).  Distribution is therefore a
-first-class NEW subsystem of the TPU build, designed for ICI collectives:
+first-class NEW subsystem of this build, designed around one collective:
 
 * **Doc sharding** (`dist_query.py`): each device owns the postings of the
   doc slots congruent to its shard id.  Queries broadcast (tiny job tables),
@@ -16,7 +16,7 @@ first-class NEW subsystem of the TPU build, designed for ICI collectives:
   no collective crosses it.
 
 Mesh axes: ("data", "docs").  The term-range sharding alternative trades
-these collectives for prefix-locality; doc sharding wins on TPU because the
+these collectives for prefix-locality; doc sharding wins because the
 collective volume is k results instead of posting partials, and load
 balances under power-law dfs.
 """

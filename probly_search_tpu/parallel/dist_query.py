@@ -5,18 +5,17 @@ Layout: doc slot ``g`` lives on shard ``g % n_shards`` with local slot
 terms (classic partition-by-document).  One global sorted term dictionary is
 shared; per-shard CSR offsets index each shard's posting record array.
 
-Collective plan (ICI): ONE collective — per-shard local top-k ->
-``all_gather`` over "docs" -> final top-k (replicated); only O(k) values
-cross the interconnect per query.  Document frequencies (the distributed
+Collective plan: ONE collective — per-shard local top-k -> ``all_gather``
+over "docs" -> final top-k (replicated); only O(k) values cross the
+interconnect per query.  Document frequencies (the distributed
 analogue of count_documents, index.rs:282-297) are GLOBAL but static per
 snapshot, so they are computed on host from the merged segment and
-premultiplied into each job's scale word — no df psum at query time, which
-also makes the fused Pallas kernel eligible per shard.
+premultiplied into each job's scale word — no df psum at query time.
 
 Execution mirrors the single-chip engine (index/device.py): queries bucket
 into shape classes, every class's job table packs into ONE flat buffer, and
 the whole window runs as ONE jitted shard_map program returning ONE packed
-result array — a single dispatch round trip and transfer pair per window.
+result array — a single dispatch and transfer pair per window.
 
 The per-shard compute is the SAME ``_query_step_impl`` as the single-chip
 path — one engine, one semantics, N chips.
@@ -63,8 +62,7 @@ class ShardedDeviceIndex:
         self.config = index.config
         self.CHUNK = int(getattr(index.config, "chunk_size", 0) or type(self).CHUNK)
         # Fine (non-pow2) NC buckets, same ladder as the single-chip engine
-        # (per-shard compute IS _query_step_impl; device pace is ~linear in
-        # gathered lanes, PERFORMANCE.md r6 session 1).
+        # (per-shard compute IS _query_step_impl).
         from ..index.device import DeviceIndex as _DIX
 
         if getattr(index.config, "fine_nc_buckets", True):
@@ -114,7 +112,7 @@ class ShardedDeviceIndex:
 
         # Per-shard CSR: select postings by doc % n (order within a term is
         # preserved, so per-shard postings stay doc-sorted).
-        R = -(-(1 + 2 * F) // 4) * 4  # sublane-aligned (see index/device.py)
+        R = -(-(1 + 2 * F) // 4) * 4  # rows padded to a multiple of 4
         post_doc = gseg.post_doc
         term_of_post = np.repeat(
             np.arange(T, dtype=np.int64), np.diff(gseg.offsets).astype(np.int64)
@@ -607,7 +605,7 @@ class ShardedDeviceIndex:
         # those queries need the lockstep pool semantics.  They get their
         # OWN per-shard job tables (word 2 = dense per-query node id) and
         # run the exact lockstep program per shard (z2o_step is per-(doc,
-        # field) local, so doc-sharding composes; VERDICT r2 item 6) —
+        # field) local, so doc-sharding composes) —
         # host fallback only past the lockstep caps (F > 8, > 16 terms,
         # > 16384 local entry lanes).
         o3 = np.lexsort((jqterm, tid, jquery))
@@ -660,21 +658,7 @@ class ShardedDeviceIndex:
         words = np.zeros((n, NJOBS, 4), dtype=np.int32)
         words[:, :, 0] = starts_all
         words[:, :, 1] = lens_all | meta1[None, :]
-        words[:, :, 3] = score.view(np.int32)[None, :]
-        # Word 2: per-query dense score rank (descending, ties equal) — the
-        # fused z2o kernel's stable-order tiebreak (ops/pallas_z2o.py).
-        s64 = score.astype(np.float64)
-        o = np.lexsort((-s64, jquery))
-        jq_o, s_o = jquery[o], s64[o]
-        new = np.ones(len(o), bool)
-        new[1:] = (jq_o[1:] != jq_o[:-1]) | (s_o[1:] != s_o[:-1])
-        grp = np.cumsum(new) - 1
-        qnew = np.ones(len(o), bool)
-        qnew[1:] = jq_o[1:] != jq_o[:-1]
-        qfirst = np.maximum.accumulate(np.where(qnew, grp, -1))
-        srank = np.empty(len(o), np.int64)
-        srank[o] = grp - qfirst
-        words[:, :, 2] = srank[None, :]
+        words[:, :, 3] = score.view(np.int32)[None, :]  # word 2 unused
 
         # Stride-C contiguous chunks (must match the on-device expansion).
         starts_mod = words[:, :, 0].astype(np.int64) % 128
@@ -716,8 +700,8 @@ class ShardedDeviceIndex:
         zero_to_one.rs:75).  The pool semantics are per-(doc, field) and a
         doc lives on exactly one shard, so running the lockstep program per
         shard over its local postings composes exactly.  Queries past the
-        lockstep lane cap (16384 LOCAL entry lanes — the remote-compiler
-        bound, CLAUDE.md) fall back to host and are appended to
+        lockstep lane cap (16384 LOCAL entry lanes, as on one card,
+        ops/z2o_device.py) fall back to host and are appended to
         ``fallback``.  Returns ``(jquery, words[n, NJOBS, 4], max_chunks,
         njobs)`` or None.
         """
@@ -770,11 +754,7 @@ class ShardedDeviceIndex:
     def _get_z2o_window_step(
         self, class_specs, k: int, lockstep: bool = False, fmt: str = "f32"
     ):
-        from ..index import device as _dev
-
-        # _FUSED_MODE is read at trace time inside z2o_fast_step — distinct
-        # modes (tests force "interpret") need distinct jitted programs.
-        key = ("z2o_lock" if lockstep else "z2o", class_specs, k, fmt, _dev._FUSED_MODE)
+        key = ("z2o_lock" if lockstep else "z2o", class_specs, k, fmt)
         fn = self._step_cache.get(key)
         if fn is not None:
             return fn
@@ -785,10 +765,6 @@ class ShardedDeviceIndex:
         n = self.n_shards
         C = self.CHUNK
         F = self.num_fields
-        # Captured at closure-build time; per_cell is a FRESH function per
-        # cache entry, so each mode gets its own jit trace (jax.jit caches
-        # by wrapped-function identity).
-        fused_mode = _dev._FUSED_MODE
 
         def per_cell(rec_blk, words_blk, qlen_blk):
             rec_l = rec_blk[0]
@@ -825,8 +801,6 @@ class ShardedDeviceIndex:
                         rec=rec_l,
                         jobs_flat=jobs_l,
                         qlen=ql_c,
-                        fused_ok=self.local_slots < (1 << 26),
-                        fused_mode=fused_mode,
                     )
                 # Drop pow-2 pad rows before the collective and the fetch.
                 s = s[:b_out]
@@ -866,7 +840,6 @@ class ShardedDeviceIndex:
                 # slots20 packs each row to a flat byte vector (rank-4
                 # window output); the other formats keep [.., {2,3}, k].
                 out_specs=P("docs", "data", *([None] * (2 if fmt == "slots20" else 3))),
-                check_vma=False,
             )
         )
         self._step_cache[key] = fn
@@ -1007,17 +980,11 @@ class ShardedDeviceIndex:
     # ------------------------------------------------------------------ #
 
     def _get_window_step(self, scorer, class_specs, k: int, fmt: str = "f32"):
-        from ..index import device as _dev
-
         key = (
             getattr(scorer, "device_cache_key", lambda: ("id", id(scorer)))(),
             class_specs,
             k,
             fmt,
-            # _FUSED_MODE is read at trace time inside _query_step_impl —
-            # distinct modes (tests force "interpret") need distinct
-            # jitted programs.
-            _dev._FUSED_MODE,
         )
         fn = self._step_cache.get(key)
         if fn is not None:
@@ -1057,8 +1024,7 @@ class ShardedDeviceIndex:
                 )
                 # b_out <= b_pad: pow-2 pad rows beyond the real query
                 # count are dropped BEFORE the collective and the packed
-                # fetch (drained bytes set the serving pace, and the O(k)
-                # all-gather rides ICI per row).
+                # fetch (the O(k) all-gather and the drain pay per row).
                 s = s[:b_out]
                 d_local = d_local[:b_out]
                 if kk < k:
@@ -1083,7 +1049,7 @@ class ShardedDeviceIndex:
             d = d[:, :k]
             d = jnp.where(jnp.isfinite(v), d, -1)
             # Rankings are fixed in f32 above; the format only changes what
-            # crosses the D2H tunnel (shared with the single-chip engine).
+            # the D2H drain moves (shared with the single-chip engine).
             packed = pack_result_rows(v, d, fmt)
             return packed[None, None]  # [1, 1, SB, ...]
 
@@ -1101,12 +1067,6 @@ class ShardedDeviceIndex:
                 # slots20 packs each row to a flat byte vector (rank-4
                 # window output); the other formats keep [.., {2,3}, k].
                 out_specs=P("docs", "data", *([None] * (2 if fmt == "slots20" else 3))),
-                # pallas_call inside shard_map cannot express per-output
-                # `vma` on its ShapeDtypeStructs, so the varying-mesh-axes
-                # checker must be off for the fused kernel to run per shard
-                # on real TPU backends (the CPU virtual mesh never takes
-                # the fused branch, which is why only hardware hits this).
-                check_vma=False,
             )
         )
         self._step_cache[key] = fn
@@ -1209,7 +1169,7 @@ class ShardedDeviceIndex:
             )
         if getattr(self.config, "prefetch_results", False):
             # Stream the replicated packed result to host behind later
-            # device work (config.prefetch_results; PERFORMANCE.md r6 s2).
+            # device work (config.prefetch_results).
             packed.copy_to_host_async()
         return ShardedPendingBatch(self, B, packed, layout, host_rows, k=k, fmt=fmt)
 
@@ -1219,19 +1179,16 @@ class ShardedDeviceIndex:
         Shape classes (same bucketing as the single-chip engine), packed
         into one flat per-(shard, data-cell) ``buf`` [n, d_ax, words].
         Range-carrying queries form separate classes (aux gather +
-        full-sort merge), padded to at most 2 rows per data cell — the
-        remote compiler handles narrow-row range programs but
-        pathologically mishandles 8-row ones (PERFORMANCE.md r4).
+        full-sort merge), padded to at most 2 rows per data cell, like
+        the single-chip packer's range classes.
 
-        Vectorized (VERDICT r4 item 3) like the single-chip packer: one
+        Vectorized like the single-card packer: one
         stable class argsort of the queries, per-job destinations by
         direct lookup (jquery is repeat(arange(B), njobs), so query q's
         job rows start at the exclusive njobs cumsum), and ONE scatter of
-        all jobs into the flat buffer.  This replaced per-class np.isin
-        over every job row + dense [n, d_ax, b_pad, nj, 3] zero-fills:
-        48.7 -> 13.6 ms per 2048-query window on this 1-CPU host
-        (PERFORMANCE.md r8 session 2).  Returns ([], [], None) for an
-        all-empty window.
+        all jobs into the flat buffer, instead of a per-class np.isin over
+        every job row and dense [n, d_ax, b_pad, nj, 3] zero-fills.
+        Returns ([], [], None) for an all-empty window.
         """
         jquery, words, max_chunks, njobs, has_range = planned
         n = self.n_shards
@@ -1332,8 +1289,8 @@ class ShardedPendingBatch:
 
     def get(self) -> List[List[QueryResult]]:
         """QueryResult rows, assembled through the columnar drain (nested
-        per-member Python loops measured slower than the whole device round
-        trip at large windows — PERFORMANCE.md)."""
+        per-member Python loops cost more than the device work at large
+        windows)."""
         if self._fmt.startswith("slots") and self._packed is not None:
             raise ValueError(
                 "result_format='slots'/'slots20' windows carry no scores; use "
@@ -1368,8 +1325,7 @@ class ShardedPendingBatch:
         the window carries no scores and ``scores`` is ``None`` (rankings
         are still exact: columns are in descending-score order).
         Per-result Python object construction costs more than the device
-        round trip at large windows (PERFORMANCE.md); multi-chip serving
-        must drain through this.
+        work at large windows; multi-chip serving must drain through this.
         """
         from ..utils.metrics import metrics
 

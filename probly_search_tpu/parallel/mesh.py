@@ -17,8 +17,8 @@ def make_mesh(
     """Build a ("data", "docs") mesh over the available devices.
 
     ``docs`` defaults to all remaining devices after the data axis.  Device
-    order follows jax.devices(), which on TPU reflects the physical ICI
-    topology, so the doc-shard all-gather rides neighboring links.
+    order follows jax.devices(); the cards of one host are joined all to
+    all by NVLink, so the order does not change the all-gather's cost.
     """
     devices = list(devices if devices is not None else jax.devices())
     n = len(devices)

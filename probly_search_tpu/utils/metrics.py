@@ -120,8 +120,8 @@ def index_stats(index) -> Dict[str, float]:
     live = len(index._docs)
     F = index.num_fields
     # Posting record array (device layout, index/device.py): doc slot +
-    # per-field tf + per-field length + liveness row, padded to the
-    # sublane multiple of 4.
+    # per-field tf + per-field length + liveness row, padded to a multiple
+    # of 4.
     rec_rows = -(-(1 + 2 * F) // 4) * 4
     hbm = rec_rows * 4 * n_postings
     return {

@@ -1,4 +1,4 @@
-"""Device-path parity: the batched TPU query program must agree with the
+"""Device-path parity: the batched device query program must agree with the
 exact f64 host oracle on every corpus — same doc sets, same ordering for
 well-separated scores, scores within f32 tolerance (SURVEY §7 hard part 1).
 """

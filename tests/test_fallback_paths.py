@@ -1,4 +1,4 @@
-"""Expansion-heavy queries and host-fallback paths (VERDICT r1 items 2/3).
+"""Expansion-heavy queries and host-fallback paths.
 
 The reference serves single-char prefix queries through the same trie DFS
 as everything else (`/root/reference/src/query.rs:260-292`); here they tile
@@ -236,7 +236,7 @@ class TestCompactResults:
 
 class TestSlotsResults:
     """result_format="slots": int8 slot bytes only, no scores (30 B/query
-    at k=10 — the serving drain is byte-bound, PERFORMANCE.md)."""
+    at k=10)."""
 
     def _corpus(self, cfg=None):
         rng = random.Random(5)
@@ -316,7 +316,7 @@ class TestSlotsResults:
         """IndexConfig.host_fallback: "allow" serves silently (default),
         "warn" emits a RuntimeWarning, "error" raises HostFallbackError —
         the guard for the measured 664x z2o adversarial degradation
-        (benchmarks/z2o_adversarial.py, PERFORMANCE.md r8 session 3)."""
+        (benchmarks/z2o_adversarial.py)."""
         import warnings
 
         from probly_search_tpu import HostFallbackError

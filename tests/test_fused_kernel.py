@@ -1,21 +1,12 @@
-"""Fused Pallas query kernel (interpret mode) vs the staged XLA step and the
-f64 host oracle."""
+"""The device BM25 query program (gather + score + pre-sorted-runs merge +
+top-k, index/device.py ``_query_step_impl``) vs the f64 host oracle, over
+the shape classes the serving path builds: multi-chunk classes, fine
+(non-pow2) chunk-count classes and multi-field indexes with deletes."""
 
 import numpy as np
-import pytest
 
-import probly_search_tpu.index.device as dev
 from probly_search_tpu import Index, bm25
 from .util import Doc, title_extract, tokenizer
-
-
-@pytest.fixture
-def fused_interpret(monkeypatch):
-    monkeypatch.setattr(dev, "_FUSED_MODE", "interpret")
-    # distinct jit cache entries per mode: clear the step cache
-    dev._STEP_CACHE.clear()
-    yield
-    dev._STEP_CACHE.clear()
 
 
 def _corpus(n=120, seed=3):
@@ -34,7 +25,7 @@ def _corpus(n=120, seed=3):
     return ix, queries
 
 
-def test_fused_matches_oracle(fused_interpret):
+def test_fused_matches_oracle():
     ix, queries = _corpus()
     rows = ix.query_batch(queries, bm25.new(), top_k=8, backend="device")
     for q, row in zip(queries, rows):
@@ -47,26 +38,29 @@ def test_fused_matches_oracle(fused_interpret):
                 np.testing.assert_allclose(r.score, o[r.key], rtol=2e-5, atol=1e-6)
 
 
-def test_wide_class_lanes_path(fused_interpret, monkeypatch):
-    """Classes past _FUSED_MAX_LANES take the lanes kernel (Pallas gather +
-    score to HBM) + staged XLA merge — force every multi-chunk class onto
-    that path and check oracle parity."""
-    monkeypatch.setattr(dev, "_FUSED_MAX_LANES", 1024)
-    dev._STEP_CACHE.clear()
+def test_wide_class_lanes_path():
+    """Multi-chunk classes: at a 128-lane chunk width every class spans
+    several pre-sorted runs, so the merge sorts across runs; rankings and
+    scores must equal the oracle."""
+    from probly_search_tpu import IndexConfig
+
     ix, queries = _corpus(n=200, seed=7)
+    ix.config = IndexConfig(chunk_size=128)
+    dix = ix.device_index()
+    plan, _fb = dix.plan_batch(queries, tokenizer, bm25.new())
+    assert max(d[2] for d in dix.pack_dispatches(len(queries), plan)) > 1
     rows = ix.query_batch(queries, bm25.new(), top_k=8, backend="device")
     for q, row in zip(queries, rows):
         oracle = ix.query(q, bm25.new(), tokenizer, [1.0])[:8]
         assert [r.key for r in row] == [r.key for r in oracle], q
         for a, b in zip(row, oracle):
             np.testing.assert_allclose(a.score, b.score, rtol=2e-5, atol=1e-6)
-    dev._STEP_CACHE.clear()
 
 
-def test_fused_fine_nc_classes(fused_interpret):
+def test_fused_fine_nc_classes():
     """Non-pow2 NC classes (fine buckets): a hot-term corpus with a small
-    chunk width lands queries in NC in {2, 3, 6, 12}; the fused kernel's
-    phantom-tail merge network must stay oracle-equal."""
+    chunk width lands queries in NC in {2, 3, 6, 12}; the merge over a
+    non-pow2 number of runs must stay oracle-equal."""
     import random
 
     from probly_search_tpu import IndexConfig
@@ -101,7 +95,7 @@ def test_fused_fine_nc_classes(fused_interpret):
             np.testing.assert_allclose(a.score, b.score, rtol=2e-5, atol=1e-6)
 
 
-def test_fused_multifield_deletes(fused_interpret):
+def test_fused_multifield_deletes():
     from .util import text_extract
 
     ix = Index(2)
@@ -162,49 +156,3 @@ def test_fetch_windows_jointly_parity():
                 assert sb is None
             else:
                 np.testing.assert_array_equal(sa, sb)
-
-
-def test_ce_variants_bit_equal():
-    """CE_VARIANT 2 (shifted low-lane swap mask) must be bit-identical to
-    the symmetric-predicate network on every merge path: run-merge ladders
-    (pow2 and phantom-tail widths), whole-row runs, and the pure bitonic
-    sort (descending-block stages keep the v1 path)."""
-    import jax.numpy as jnp
-
-    from probly_search_tpu.ops import pallas_merge as pm
-
-    rng = np.random.default_rng(0)
-    qb = 4
-    cases = [(8, 4096, 1024, 4), (8, 3072, 1024, 3), (4, 6144, 1024, 6),
-             (8, 2048, 2048, 2), (8, 512, 128, 4), (8, 1024, 0, 0)]
-    old = pm.CE_VARIANT
-    try:
-        for B, L, run, max_seg in cases:
-            if run:
-                nruns = (L + run - 1) // run
-                keys = np.zeros((B, L), np.int32)
-                for b in range(B):
-                    for r in range(nruns):
-                        n = int(rng.integers(0, run + 1))
-                        docs = np.sort(
-                            rng.choice(L * 2, size=n, replace=False)
-                        ).astype(np.int32)
-                        row = np.full(run, pm.INVALID_KEY, np.int32)
-                        lead = int(rng.integers(0, run - n + 1))
-                        row[:lead] = -1
-                        row[lead:lead + n] = (docs << qb) | int(rng.integers(0, 3))
-                        keys[b, r * run:(r + 1) * run] = row[: min(run, L - r * run)]
-            else:
-                keys = rng.integers(0, 1 << 24, size=(B, L)).astype(np.int32)
-            vals = rng.standard_normal((B, L)).astype(np.float32)
-            outs = {}
-            for v in (1, 2):
-                pm.CE_VARIANT = v
-                outs[v] = pm.merge_scores_topk_pallas(
-                    jnp.asarray(keys), jnp.asarray(vals), 10, qb,
-                    interpret=True, run=run, max_seg=max_seg,
-                )
-            np.testing.assert_array_equal(np.asarray(outs[1][0]), np.asarray(outs[2][0]))
-            np.testing.assert_array_equal(np.asarray(outs[1][1]), np.asarray(outs[2][1]))
-    finally:
-        pm.CE_VARIANT = old

@@ -1,4 +1,4 @@
-"""Heavy-query result cache (VERDICT r2 item 3): queries whose plan spans
+"""Heavy-query result cache: queries whose plan spans
 a huge posting range are answered from a snapshot-static per-(scorer,
 job-table, boosts) top-k cache — exact because the job table IS the
 device-program input."""
@@ -95,7 +95,7 @@ class TestHeavyCache:
 
 class TestHeavyCacheLRU:
     def test_repeated_stream_mostly_hits(self):
-        # VERDICT r3 item 8: a long heavy-query stream whose working set
+        # A long heavy-query stream whose working set
         # fits the cache must never recompute more than ~20% of repeats.
         ix = _index(IndexConfig(heavy_cache_min_chunks=1))
         dix = ix.device_index()

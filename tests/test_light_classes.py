@@ -32,7 +32,7 @@ def _corpus(n=3000, seed=7):
 
 def _build(**cfg):
     vocab, col = _corpus()
-    cfg.setdefault("light_chunk_size", 256)  # default is 0 (off) — r8 s14
+    cfg.setdefault("light_chunk_size", 256)  # default is 0 (off)
     ix = Index(1, config=IndexConfig(**cfg))
     ix.add_documents_columnar(list(range(len(col))), [col])
     return vocab, ix

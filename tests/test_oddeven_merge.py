@@ -1,19 +1,17 @@
-"""The pre-sorted-runs merge scheme (ops/pallas_merge.py).
+"""The pre-sorted-runs merge scheme (ops/merge.py).
 
-Posting chunks arrive as ascending key runs (index/segment.py invariant),
-so the fused kernel merges with Batcher odd-even levels instead of a full
-bitonic sort.  These tests drive ``merge_scores_topk_pallas(run=C)`` in
-interpret mode against a NumPy oracle of the ``max_score_merger`` rule
-(/root/reference/src/query.rs:150-164) over randomized runs containing all
-three lane kinds: leading pads (key -1), trailing pads (INVALID_KEY), and
-latently-dead docs (ordered keys, score -inf).
+Posting chunks arrive as ascending key runs (index/segment.py invariant).
+These tests drive ``merge_scores_topk_presorted(run=C)`` against a NumPy
+oracle of the ``max_score_merger`` rule (/root/reference/src/query.rs:
+150-164) over randomized runs containing all three lane kinds: leading pads
+(key -1), trailing pads (INVALID_KEY), and latently-dead docs (ordered
+keys, score -inf).
 """
 
 import numpy as np
 import pytest
 
-from probly_search_tpu.ops.merge import INVALID_KEY
-from probly_search_tpu.ops.pallas_merge import merge_scores_topk_pallas
+from probly_search_tpu.ops.merge import INVALID_KEY, merge_scores_topk_presorted
 
 QB = 4  # qterm bits
 
@@ -66,8 +64,7 @@ def _make_rows(rng, rows, n_runs, run, excl):
 
 
 @pytest.mark.parametrize("excl", [False, True])
-# Non-pow2 run counts (3, 6, 12) exercise the virtual-pow2 phantom-tail
-# network (fine NC buckets, ops/pallas_merge._compare_exchange guards).
+# Non-pow2 run counts (3, 6, 12) are the fine NC bucket classes.
 @pytest.mark.parametrize("n_runs", [2, 3, 4, 6, 8, 12])
 def test_presorted_runs_merge_matches_oracle(excl, n_runs):
     rng = np.random.default_rng(42 + n_runs)
@@ -81,9 +78,7 @@ def test_presorted_runs_merge_matches_oracle(excl, n_runs):
         sel = np.isin(doc, list(dead_docs)) & (key[r] >= 0) & (key[r] != INVALID_KEY)
         val[r, sel] = -np.inf
 
-    s, d = merge_scores_topk_pallas(
-        key, val, k, QB, rows_per_block=2, interpret=True, run=run, excl=excl
-    )
+    s, d = merge_scores_topk_presorted(key, val, k, QB, run, excl)
     s, d = np.asarray(s), np.asarray(d)
     for r in range(rows):
         want = _oracle_topk(key[r], val[r], k, excl)
@@ -101,9 +96,7 @@ def test_single_run_already_sorted():
     rng = np.random.default_rng(7)
     rows, run, k = 2, 256, 5
     key, val = _make_rows(rng, rows, 1, run, excl=False)
-    s, d = merge_scores_topk_pallas(
-        key, val, k, QB, rows_per_block=2, interpret=True, run=run, excl=False
-    )
+    s, d = merge_scores_topk_presorted(key, val, k, QB, run, False)
     s, d = np.asarray(s), np.asarray(d)
     for r in range(rows):
         want = _oracle_topk(key[r], val[r], k, excl=False)

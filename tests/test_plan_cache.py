@@ -1,4 +1,4 @@
-"""Per-query plan cache (VERDICT r2 item 5): repeated query strings must
+"""Per-query plan cache: repeated query strings must
 plan to byte-identical job tables through the pooled cache, and mixed
 hit/miss windows must assemble correctly."""
 
@@ -97,9 +97,8 @@ class TestPlanCache:
 
 
 class TestZ2oPlanCache:
-    """z2o per-query plan cache (r5 session 4: plan was 66 ms of an
-    8192-query window): pooled plans must be byte-identical to cold ones,
-    including shared-node flags and cap fallbacks."""
+    """z2o per-query plan cache: pooled plans must be byte-identical to
+    cold ones, including shared-node flags and cap fallbacks."""
 
     def _plan(self, dix, queries):
         from probly_search_tpu.ops.z2o_device import plan_batch_z2o

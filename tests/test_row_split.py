@@ -1,8 +1,8 @@
 """Greedy pow2 row-splitting of shape classes (IndexConfig.pow2_row_split).
 
 Device compute is ~linear in rows x lanes; splitting a 2638-member class
-into 2048+512+pad(128) instead of one pow2 pad to 4096 saves the pad rows
-(~10% of the bench window, PERFORMANCE.md r5).  Results must be identical
+into 2048+512+pad(128) instead of one pow2 pad to 4096 saves the pad
+rows.  Results must be identical
 either way — spans only re-tile the SAME job rows."""
 
 import random

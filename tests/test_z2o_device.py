@@ -208,49 +208,3 @@ def test_result_formats_match_f32_ranking():
     assert (np.asarray(k_s)[valid] == np.asarray(k_f32)[valid]).all()
     # And the f32 ranking itself matches the exact oracle.
     _assert_matches_oracle(ix, [q for q in queries if q.strip()])
-
-
-def test_z2o_ce_variants_bit_equal():
-    """CE_VARIANT 2 (shifted low-lane swap mask, pallas_merge.CE_VARIANT)
-    must leave the z2o fused kernel's 2-key comparator stages bit-identical
-    to the symmetric-predicate form across a random two-field corpus."""
-    import probly_search_tpu.index.device as dev
-    from probly_search_tpu.ops import pallas_merge as pm
-    from probly_search_tpu.ops.z2o_device import z2o_query_batch_async
-    from probly_search_tpu.utils.tokenizers import whitespace_tokenizer
-
-    rng = random.Random(7)
-    vocab = ["".join(rng.choice("abcdef") for _ in range(rng.randint(1, 4))) for _ in range(50)]
-    ix = Index(2)
-    for i in range(140):
-        ix.add_document(
-            [title_extract, text_extract], tokenizer, i,
-            Doc(
-                id=i,
-                title=" ".join(rng.choice(vocab) for _ in range(rng.randint(1, 6))),
-                text=" ".join(rng.choice(vocab) for _ in range(rng.randint(1, 10))),
-            ),
-        )
-    qs = [" ".join(rng.choice(vocab) for _ in range(rng.randint(1, 3))) for _ in range(16)]
-    dix = ix.device_index()
-    outs = {}
-    old = pm.CE_VARIANT
-    old_mode = dev._FUSED_MODE
-    try:
-        # The fused branch is skipped on the CPU backend unless interpret
-        # mode is forced (index/device.py _FUSED_MODE) — without this the
-        # comparator stages under test never trace.
-        dev._FUSED_MODE = "interpret"
-        for v in (1, 2):
-            pm.CE_VARIANT = v
-            dev._STEP_CACHE.clear()
-            outs[v] = z2o_query_batch_async(dix, qs, whitespace_tokenizer, 5).get_arrays()
-    finally:
-        pm.CE_VARIANT = old
-        dev._FUSED_MODE = old_mode
-        dev._STEP_CACHE.clear()
-    for a, b in zip(outs[1], outs[2]):
-        if a is None:
-            assert b is None
-        else:
-            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Freeze the headline bench's window templates into a checked-in manifest.
 
-Zero-traffic cold start (VERDICT r4 item 2): bench.py loads
+Zero-traffic cold start: bench.py loads
 ``benchmarks/bench_templates.json`` and calls ``DeviceIndex.prewarm`` before
 the first query, so the window program is compiled (or, with the persistent
 compile cache, cache-loaded in ~0.1 s) before traffic arrives instead of
